@@ -1,11 +1,11 @@
-"""force2vec_tpu — a TPU-native force-directed graph embedding framework.
+"""force2vec_tpu — a force-directed graph embedding framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 HipGraph/Force2Vec (ICDM'20): minibatch-SGD force-directed graph embedding
 with t-distribution / sigmoid / LinLog / ForceAtlas / Fruchterman-Reingold
 force models, negative sampling, and a random-walk variant — plus the
 surrounding framework the reference lacks: tests, checkpointing, profiling,
-multi-chip sharding and an evaluation suite.
+multi-device sharding and an evaluation suite.
 
 Quick start::
 

@@ -5,7 +5,7 @@ Mirrors the reference CLI (Test/Force2Vec.cpp:49-116): ``-input -output
 defaults (batch 256, iter 1200, dim 128, ns 5, lr 0.02 — Test/
 Force2Vec.cpp:50-53).  ``-option`` keeps the reference numbering
 (models/forces.OPTION_TO_MODEL); ``-threads`` is accepted and ignored
-(thread count is meaningless on TPU), ``-gamma`` is accepted and unused
+(XLA schedules the device work), ``-gamma`` is accepted and unused
 exactly like the reference (parsed at Test/Force2Vec.cpp:76, never read by
 kernels).  Additional ``--``-style flags expose what the reference lacks:
 checkpointing, evaluation, sharding.
@@ -25,14 +25,14 @@ import time
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="force2vec",
-        description="TPU-native Force2Vec: force-directed graph embedding",
+        description="Force2Vec in JAX: force-directed graph embedding",
     )
     # reference-parity flags (single dash, like the C++ driver)
     p.add_argument("-input", required=True, help=".mtx/.bcsr/edgelist graph")
     p.add_argument("-output", default="", help="output directory/prefix")
     p.add_argument("-batch", type=int, default=256)
     p.add_argument("-iter", type=int, default=1200)
-    p.add_argument("-threads", type=int, default=0, help="ignored on TPU")
+    p.add_argument("-threads", type=int, default=0, help="accepted and ignored (parity)")
     p.add_argument("-dim", type=int, default=128)
     p.add_argument("-nsamples", type=int, default=5)
     p.add_argument("-lr", type=float, default=None)
@@ -78,15 +78,13 @@ def build_parser() -> argparse.ArgumentParser:
         help="vertex schedule: iteration-pipelined halo exchange — consume "
         "the buffers exchanged at the previous iteration so the in-flight "
         "collective has no same-iteration consumer (one-iteration-stale "
-        "neighbor rows; the reference's own cross-batch semantics).  "
-        "Quality-gated on cora; see OVERLAP.md §2b",
+        "neighbor rows; the reference's own cross-batch semantics)",
     )
     p.add_argument(
         "--coordinator",
         default=None,
         help="multi-host: coordinator address host:port (or set "
-        "JAX_COORDINATOR_ADDRESS / rely on Cloud TPU pod metadata); "
-        "single-process when unset",
+        "JAX_COORDINATOR_ADDRESS); single-process when unset",
     )
     p.add_argument("--num-processes", type=int, default=None,
                    help="multi-host: total process count")
@@ -105,14 +103,25 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.eval:
+        from force2vec_tpu.eval.linkpred import require_sklearn
 
+        try:
+            require_sklearn()
+        except ImportError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+
+    from force2vec_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     from force2vec_tpu.graphs.io import load_graph, write_embeddings
     from force2vec_tpu.train.trainer import Force2Vec, TrainConfig
 
     # Multi-host bootstrap FIRST (before any jax.devices() call): joins
     # this process into one JAX runtime spanning every host.  No-op when
-    # single-process (VERDICT r3 missing #4: the documented multi-host
-    # story must be reachable from the CLI, not hand-written driver code).
+    # single-process, so the multi-host story is reachable from the CLI,
+    # not only from hand-written launch scripts.
     from force2vec_tpu.dist.multihost import initialize, is_coordinator
 
     initialize(

@@ -1,19 +1,10 @@
-"""Multi-host bootstrap and cross-host meshes.
+"""Multi-process bootstrap and cross-process meshes.
 
 The reference is strictly single-process (SURVEY.md §2.5); this module is
-the from-scratch scale-out story.  One process per host, each seeing its
-local TPU chips; ``initialize()`` wires them into one JAX runtime
+the scale-out story.  One process per host (or per card group), each
+seeing its local devices; ``initialize()`` wires them into one JAX runtime
 (``jax.distributed``), after which every array/collective in dist/sharded
-spans the full pod slice transparently — dp/tp collectives ride ICI
-within a slice and DCN across slices, chosen by XLA from the mesh layout.
-
-Design note (BASELINE.json north star): for graphs whose embedding table
-exceeds one host's HBM, the next step is an edge-partitioned mode — X
-sharded by vertex over dp, per-iteration boundary-row exchange via
-``ragged_all_to_all`` overlapping the local ELL sweep.  The hooks here
-(mesh construction, host-local slicing helpers) are laid out for that;
-the replicated-X sync/batch runners are what current hardware in this
-environment can exercise (single chip + virtual CPU meshes).
+spans all processes transparently.
 """
 
 from __future__ import annotations
@@ -34,18 +25,14 @@ def initialize(
     """Bootstrap this process into a multi-host JAX runtime.
 
     With no arguments, reads the standard env vars (JAX_COORDINATOR_ADDRESS
-    / JAX_NUM_PROCESSES / JAX_PROCESS_ID) or the TPU-pod metadata that
-    ``jax.distributed.initialize`` discovers natively on Cloud TPU.  Safe
-    to call when single-process (no coordinator configured): it no-ops.
+    / JAX_NUM_PROCESSES / JAX_PROCESS_ID).  Safe to call when
+    single-process (no coordinator configured): it no-ops.
     """
     if coordinator_address is None:
         coordinator_address = os.environ.get("JAX_COORDINATOR_ADDRESS")
-    in_pod = os.environ.get("TPU_WORKER_HOSTNAMES") not in (None, "", "localhost")
-    if coordinator_address is None and not in_pod:
+    if not coordinator_address:
         return  # single process
-    kwargs = {}
-    if coordinator_address:
-        kwargs["coordinator_address"] = coordinator_address
+    kwargs = {"coordinator_address": coordinator_address}
     if num_processes is not None:
         kwargs["num_processes"] = num_processes
     elif os.environ.get("JAX_NUM_PROCESSES"):
@@ -58,11 +45,9 @@ def initialize(
 
 
 def pod_mesh(tp: int = 1) -> Mesh:
-    """(dp, tp) mesh over every chip in the (possibly multi-host) runtime.
-
-    Devices are ordered so that the tp axis stays within a host (tp
-    collectives ride ICI) and dp spans hosts (one all_gather per step
-    crosses DCN).
+    """(dp, tp) mesh over every device in the (possibly multi-process)
+    runtime.  Devices are ordered by process, so the tp axis stays within
+    a process and dp spans processes.
     """
     devices = sorted(jax.devices(), key=lambda d: (d.process_index, d.id))
     n = len(devices)

@@ -11,8 +11,6 @@ mesh has two named axes:
   (squared distances, dot products) are completed with a ``psum`` over
   ``tp`` injected through the force functions' ``rsum`` hook
   (models/forces.py).
-
-Both collectives ride ICI when the mesh is laid out over a slice.
 """
 
 from __future__ import annotations

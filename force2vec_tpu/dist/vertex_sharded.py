@@ -1,12 +1,12 @@
 """Vertex-sharded training: X partitioned over a ``vp`` mesh axis with a
 static halo exchange — the scale-out mode for graphs whose embedding table
-outgrows one chip's HBM.
+outgrows one device's memory.
 
 The reference has no distributed analog (single address space, SURVEY.md
 §5); this is the design BASELINE.json's north star asks for: a 1-D vertex
 partition of the embedding table, each shard computing forces for its own
 rows, with the remote neighbor rows it reads ("the halo") delivered once
-per iteration by ONE ``lax.all_to_all`` riding ICI.  Per iteration, per
+per iteration by ONE ``lax.all_to_all``.  Per iteration, per
 shard:
 
 1. build the send buffer ``x_loc[send_idx]`` — one gather;
@@ -41,6 +41,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from force2vec_tpu.graphs.csr import Graph
 from force2vec_tpu.graphs.partition import VertexShardLayout
 from force2vec_tpu.models.forces import get_model
+from force2vec_tpu.train.sync import masked_force_sum
 from force2vec_tpu.train.trainer import TrainConfig
 
 
@@ -79,7 +80,7 @@ class VertexShardedForce2Vec:
         self.P = self.mesh.shape["vp"]
         self.sampling = sampling
         self.neg_pool = int(neg_pool)
-        # Iteration-pipelined halo exchange (VERDICT r4 #5): issue
+        # Iteration-pipelined halo exchange: issue
         # iteration i's cold all_to_all / hot all_gather from x_i but
         # CONSUME the buffers exchanged at iteration i-1 — the collective
         # has no same-iteration consumer, so XLA's async-collective
@@ -127,8 +128,7 @@ class VertexShardedForce2Vec:
                     first[p, u] = idx.astype(np.int32)
                 garr["first_vrow"] = jnp.asarray(first)
             # flat-pool walk tables (one gather per step instead of a
-            # per-bucket where-chain — the sync engine's r5 rewrite,
-            # PERF.md §8.3): pool = every bucket rectangle concatenated,
+            # per-bucket where-chain, as in the sync engine): pool = every bucket rectangle concatenated,
             # base[p, lr] = flat offset of local row lr's slot 0.  Exact
             # for hubs (consecutive virtual rows linearize the CSR row).
             pool = np.concatenate(
@@ -153,10 +153,9 @@ class VertexShardedForce2Vec:
             # local table P-1 times: (P-1)·n_loc rows/iter/shard regardless
             # of need.  'a2a' fetches only the deduplicated needed rows via
             # a request/response all_to_all pair, provisioned at a STATIC
-            # per-pair cap C (XLA shapes): measured on the headline bench
-            # graph the needed-rows volume is 0.43x the ring at P=8 and
-            # 0.15x at P=32 (benchmarks/rwalk_ring_eval.py →
-            # benchmarks/out/rwalk_ring_eval.json).  Slots that overflow
+            # per-pair cap C (XLA shapes): counted on the bench graph, the
+            # needed-rows volume is 0.43x the ring at P=8 and 0.15x at
+            # P=32.  Slots that overflow
             # the cap are dropped from that iteration's attraction (the
             # cap carries `walk_fetch_slack` headroom over the preflight
             # worst, so overflow is a never-in-practice tail; the parity
@@ -180,7 +179,12 @@ class VertexShardedForce2Vec:
             garr["lrow_of"] = jnp.asarray(lay.lrow_of)  # [n]
             self._gspecs["shard_of"] = P()
             self._gspecs["lrow_of"] = P()
-        self._garr = garr
+        # placed on the mesh once, so training calls do not re-send them
+        self._garr = {
+            k: jax.device_put(np.asarray(v),
+                              NamedSharding(self.mesh, self._gspecs[k]))
+            for k, v in garr.items()
+        }
 
         from force2vec_tpu.train.trainer import make_train_dispatcher
 
@@ -307,17 +311,7 @@ class VertexShardedForce2Vec:
         covered += hub.real_count if hub is not None else 0
 
         def force_sum(kind, xi, xj, dg, invd, step):
-            k = xj.shape[1]
-            mask = (
-                jnp.arange(k, dtype=jnp.int32)[None, :] < dg[:, None]
-            )[:, :, None]
-            if kind == "edge":
-                f = model.edge_force(
-                    xi[:, None, :], xj, invd[:, None, None], step, mask=mask
-                )
-            else:
-                f = model.sample_force(xi[:, None, :], xj, step, mask=mask)
-            return jnp.sum(f, axis=1)
+            return masked_force_sum(model, kind, xi, xj, dg, invd, step)
 
         def bucket_force(g, x_loc, xtab, bi, b, step):
             """Masked ELL force for one slab, gathering neighbors from
@@ -355,8 +349,7 @@ class VertexShardedForce2Vec:
             all_to_all the ≤C local-row requests per peer, answer with one
             gather, all_to_all the rows back — (P-1)·C embedding rows on
             the wire instead of the ring's (P-1)·n_loc (0.43x at P=8,
-            0.15x at P=32 on the bench graph; benchmarks/rwalk_ring_eval
-            .py).  Slots past the cap are dropped from this iteration's
+            0.15x at P=32 on the bench graph).  Slots past the cap are dropped from this iteration's
             attraction — the cap is preflight-sized with slack so that is
             a never-in-practice tail, and parity vs the ring is asserted
             on real draws in tests."""
@@ -720,28 +713,32 @@ class VertexShardedForce2Vec:
         """
         if step is None:
             step = self.lr
-        pool_fn = self._build_pool_fn()
-        iteration = self._iteration
-        lay = self.layout
-        n, n_loc = lay.n, lay.n_loc
+        # one compiled program per argument structure, built on first use
+        cache = self.__dict__.setdefault("_run_iteration_jit", {})
+        key = (choice is None, walks is None)
+        if key not in cache:
+            pool_fn = self._build_pool_fn()
+            iteration = self._iteration
+            n, n_loc = self.layout.n, self.layout.n_loc
 
-        def one(g, x_loc, pool_g, ch, wg, s):
-            rows = pool_fn(x_loc, pool_g)
-            w_loc = None
-            if wg is not None:
-                gmap_loc = g["gmap"][0][:n_loc]
-                wl_rows = jnp.take(wg, jnp.clip(gmap_loc, 0, n - 1), axis=0)
-                w_loc = jnp.where((gmap_loc >= 0)[:, None], wl_rows, -1)
-            return iteration(g, x_loc, rows, ch, w_loc, s)
+            def one(g, x_loc, pool_g, ch, wg, s):
+                rows = pool_fn(x_loc, pool_g)
+                w_loc = None
+                if wg is not None:
+                    gmap_loc = g["gmap"][0][:n_loc]
+                    wl_rows = jnp.take(wg, jnp.clip(gmap_loc, 0, n - 1), axis=0)
+                    w_loc = jnp.where((gmap_loc >= 0)[:, None], wl_rows, -1)
+                return iteration(g, x_loc, rows, ch, w_loc, s)
 
-        ch_spec = P() if choice is None else self.x_spec
-        sharded = jax.shard_map(
-            one,
-            mesh=self.mesh,
-            in_specs=(self._gspecs, self.x_spec, P(), ch_spec, P(), P()),
-            out_specs=(self.x_spec, P()),
-            check_vma=False,
-        )
+            ch_spec = P() if choice is None else self.x_spec
+            cache[key] = jax.jit(jax.shard_map(
+                one,
+                mesh=self.mesh,
+                in_specs=(self._gspecs, self.x_spec, P(), ch_spec, P(), P()),
+                out_specs=(self.x_spec, P()),
+                check_vma=False,
+            ))
+        sharded = cache[key]
         ch = None if choice is None else jnp.asarray(choice, dtype=jnp.int32)
         w = None if walks is None else jnp.asarray(walks, dtype=jnp.int32)
         xn, drops = sharded(
@@ -759,8 +756,8 @@ class VertexShardedForce2Vec:
         """Per-iteration communication accounting, per shard (rows are
         [D]-wide embedding rows unless stated).  Makes the exchange volume
         visible in logs/artifacts instead of buried in the layout
-        (VERDICT r2 weak #5: the rwalk ring ships the full local table
-        P-1 times — that cost must be a number, not a surprise)."""
+        (the rwalk ring ships the full local table P-1 times — that cost
+        must be a number, not a surprise)."""
         lay, cfg = self.layout, self.config
         Pn, dim = lay.n_shards, cfg.dim
         itemsize = jnp.dtype(self._dtype).itemsize

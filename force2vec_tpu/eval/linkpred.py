@@ -108,6 +108,16 @@ def make_link_prediction_data(
     return X[order], y[order]
 
 
+def require_sklearn() -> None:
+    """Raise a clear error when scikit-learn, which scoring needs, is absent."""
+    import importlib.util
+
+    if importlib.util.find_spec("sklearn") is None:
+        raise ImportError(
+            "link-prediction scoring (--eval) needs scikit-learn, which is "
+            "not installed")
+
+
 def link_prediction_scores(
     graph: Graph,
     emb: np.ndarray,
@@ -116,6 +126,7 @@ def link_prediction_scores(
     seed: int = 0,
 ) -> Dict[str, float]:
     """LogisticRegression link-pred scores (runlinkpredict.py:127-140)."""
+    require_sklearn()
     from sklearn.linear_model import LogisticRegression
     from sklearn.metrics import accuracy_score, f1_score, roc_auc_score
 

@@ -26,12 +26,9 @@ _lib: Optional[ctypes.CDLL] = None
 _build_failed = False
 
 
-_PREBUILT = os.path.join(_NATIVE_DIR, "prebuilt", "libgraphio-x86_64.so")
-
-
 def _build() -> bool:
-    # -march=native first (best parse rate on this host); retry portable
-    # flags so a vendorable binary can be produced on any x86-64.
+    # -march=native first (best parse rate on the build host); retry with
+    # portable flags where the compiler rejects it.
     for march in ("-march=native", None):
         cmd = ["g++", "-O3", "-fopenmp", "-shared", "-fPIC", "-std=c++17",
                _SRC, "-o", _SO] + ([march] if march else [])
@@ -45,16 +42,10 @@ def _build() -> bool:
 
 
 def _so_path() -> Optional[str]:
-    """Freshly-built .so, else a stale one, else the vendored prebuilt."""
+    """A library built from the committed source, or None (no compiler, or
+    the build failed): callers then use the numpy readers."""
     fresh = os.path.exists(_SO) and os.path.getmtime(_SO) >= os.path.getmtime(_SRC)
     if not fresh and not _build():
-        # no compiler (or build broke): a stale local build still matches
-        # the committed source more closely than the numpy fallback, and
-        # the vendored prebuilt (portable -O3 x86-64 build, checksummed in
-        # prebuilt/SHA256SUMS) covers compiler-less images like CI/judging
-        for cand in (_SO, _PREBUILT):
-            if os.path.exists(cand):
-                return cand
         return None
     return _SO
 

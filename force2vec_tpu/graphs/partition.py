@@ -2,7 +2,7 @@
 
 The reference is single-address-space OpenMP: every thread reads any row of
 ``nCoordinates`` through the cache hierarchy (SURVEY.md §2.5 / §5 — there is
-no distributed backend to translate).  This module is the from-scratch TPU
+no distributed backend to translate).  This module is the from-scratch
 answer for graphs whose embedding table outgrows one chip's HBM: a 1-D
 vertex partition of X over a ``vp`` mesh axis, with remote neighbor rows
 ("the halo") delivered once per iteration by static-shape collectives.

@@ -1,4 +1,4 @@
-"""Device compute primitives (segment reduction, Pallas kernels)."""
+"""Device compute primitives (segment reduction)."""
 
 from force2vec_tpu.ops.segment import segment_sum_into_batch
 

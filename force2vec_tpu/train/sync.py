@@ -1,16 +1,16 @@
-"""Epoch-synchronous trainer — the TPU throughput schedule.
+"""Epoch-synchronous trainer — the throughput schedule.
 
 Semantically this is the reference's own training loop at ``batch_size =
 n`` (one batch per iteration: every read sees iteration-start X, one apply
 at the end — sample/algorithms.cpp:569-639 with NUMSIZE = n).  What the
 batch-sequential schedule buys the reference on a CPU (cache locality) it
-costs a TPU dearly: hundreds of serial small dispatches per iteration.
+costs an accelerator dearly: hundreds of serial small steps per iteration.
 The sync schedule turns one iteration into ONE fused device computation
 over the degree-sorted ELL layout (graphs/csr.py::SyncLayout):
 
 * per degree bucket: gather ``[count, K, D]`` neighbor rows, evaluate the
-  force elementwise on the VPU, mask the padding, reduce over K — a pure
-  bandwidth-bound sweep with no MXU detour and no scatter;
+  force elementwise, mask the padding, reduce over K — a bandwidth-bound
+  sweep that XLA fuses into one kernel per bucket, with no scatter;
 * hub rows (deg > hub_width) arrive pre-split into virtual rows; their
   partials reduce into owner rows with one small segment-sum;
 * per-vertex negative sampling (``[n, ns]`` — the ``-bs 1`` flavor of the
@@ -38,6 +38,23 @@ from force2vec_tpu.models.forces import get_model
 from force2vec_tpu.train.trainer import TrainConfig
 
 
+def masked_force_sum(model, kind, xi, xj, deg, invd, step, rsum=None):
+    """Σ over the K slots of each row that are real (``k < deg``) of the
+    edge (``kind='edge'``) or sample force: xi [C, D], xj [C, K, D] (any
+    float dtype; computed in xi's), deg [C], invd [C] → [C, D]."""
+    if xj.dtype != xi.dtype:  # low-precision gather replica
+        xj = xj.astype(xi.dtype)
+    kw = {} if rsum is None else {"rsum": rsum}
+    mask = (jnp.arange(xj.shape[1], dtype=jnp.int32)[None, :]
+            < deg[:, None])[:, :, None]
+    if kind == "edge":
+        f = model.edge_force(xi[:, None, :], xj, invd[:, None, None], step,
+                             mask=mask, **kw)
+    else:
+        f = model.sample_force(xi[:, None, :], xj, step, mask=mask, **kw)
+    return jnp.sum(f, axis=1)
+
+
 class SyncForce2Vec:
     """Train with the epoch-synchronous schedule (one fused step/iter).
 
@@ -53,11 +70,9 @@ class SyncForce2Vec:
         min_width: int = 8,
         hub_width: int = 256,
         row_align: int = 8,
-        use_pallas: Optional[bool] = None,
         tile_budget_bytes: int = 1024 * 1024 * 1024,
         width_scheme: str = "mult8",
-        take_group_bytes: Optional[int] = None,
-        hot_rows: Optional[int] = None,
+        hot_rows: int = 0,
         span_align: int = 8,
     ):
         self.graph = graph
@@ -65,70 +80,21 @@ class SyncForce2Vec:
         self.model = get_model(config.model, sm_table=config.sm_table)
         if self.model.repulsion == "all":
             raise ValueError("tdist_exact uses the batch trainer, not sync mode")
-        # Default ON for TPU backends (None = auto).  Measured on v5e with
-        # a clean loop-in-jit harness: XLA fuses the neighbor gather into
-        # the force chain and the fused loop runs at ~188 M rows/s, while a
-        # STANDALONE bulk take (fast gather path) followed by the Pallas
-        # force kernel (ops/pallas_force.py, opaque to fusion) runs at
-        # ~227 M rows/s — the kernel wins by ~1.2-1.3x.  Off on CPU, where
-        # Mosaic isn't available (tests exercise the kernel in interpret
-        # mode separately).
-        if use_pallas is None:
-            use_pallas = jax.default_backend() != "cpu"
-        if config.sm_table:
-            use_pallas = False  # 1-D table gather has no Mosaic lowering
-        self.use_pallas = bool(use_pallas)
         self.tile_budget_bytes = int(tile_budget_bytes)
-        # Hot/cold gather split (PERF.md §7.6): the v5e gather engine
-        # serves tables ≤ ~100 MB at ~586 M rows/s and larger tables at
-        # only ~165 M rows/s; when the gather table exceeds the fast tier,
-        # the high-degree suffix (40%+ of power-law slots) is fetched from
-        # a compact ≤~tier-sized copy instead.  Auto (None): on exactly
-        # when the table outgrows the tier; walk models keep the plain
-        # layout (their attraction doesn't use bucket gathers, and the
-        # walk engine samples from the ELL tables directly).
-        import os as _os
-
-        gdt_bytes = jnp.dtype(
-            config.gather_dtype or config.dtype).itemsize
-        tier_bytes = int(_os.environ.get("F2V_HOT_TIER_MB", "96")) * 2**20
-        if hot_rows is None:
-            table_bytes = graph.n * config.dim * gdt_bytes
-            hot_rows = (
-                0 if (self.model.attraction == "walk"
-                      or table_bytes <= tier_bytes)
-                else tier_bytes // (config.dim * gdt_bytes)
-            )
+        # hot_rows > 0 gathers the top-degree suffix from a compact copy of
+        # the table (the hot/cold split, graphs/csr.py); off by default.
+        # Walk models need the plain layout (the walk engine samples from
+        # the ELL tables directly).
         self.hot_rows = int(hot_rows)
-        # mult8 width ladder: widths stay multiples of the 8-row sublane
-        # tile, so the [C, K, D] force sweep wastes zero sublane compute
-        # (Mosaic pads K up to 8); measured on v5e this beats mult4's
-        # smaller gather volume (1.11x vs 1.24x nnz) now that the take
-        # groups pipeline the gather — 333 vs 320 M updates/s
-        # (benchmarks/profile_r3b.py, PERF.md).
+        # mult8 width ladder: bucket widths are multiples of 8, which pads
+        # the bench graph's slots to 1.24x nnz (pow2: 1.39x).  Whether a
+        # finer ladder pays on the GPU is an open question (PERF.md).
         self.layout = SyncLayout.build(
             graph, min_width=min_width, hub_width=hub_width,
             row_align=row_align,
             widths=SyncLayout.widths_for(min_width, hub_width, width_scheme),
             hot_rows=self.hot_rows, span_align=span_align,
         )
-        # Auto take-group size: throughput is flat for 8-32 MB groups at
-        # the headline bench size (benchmarks/profile_takegroups.py,
-        # re-confirmed by the r5 tile×group scan, PERF.md §8.2), and at
-        # big-graph scale 32 MB measured FASTER end-to-end than 128 MB
-        # (122.7 vs 115.6 M up/s, PERF.md §7.8) — so the auto cap stays
-        # inside the measured-good band instead of growing with the graph
-        # (the old total//40 heuristic picked 256 MB at com-Youtube scale).
-        if take_group_bytes is None:
-            gdt_sz = (
-                jnp.dtype(config.gather_dtype).itemsize
-                if config.gather_dtype else jnp.dtype(config.dtype).itemsize
-            )
-            total = self.layout.padded_edges * config.dim * gdt_sz
-            take_group_bytes = max(
-                8 * 1024 * 1024, min(32 * 1024 * 1024, total // 40)
-            )
-        self.take_group_bytes = int(take_group_bytes)
         self.lr = config.resolve_lr(self.model)
         self._dtype = jnp.dtype(config.dtype)
 
@@ -157,8 +123,7 @@ class SyncForce2Vec:
             pool, base = _build_walk_tables(lay)
             garr["walk_pool"] = jnp.asarray(pool)
             # (deg, base) packed as one [n_pad, 2] table: the walk step
-            # fetches both with ONE row-granularity take (row-rate-bound,
-            # PERF.md §1) instead of two element gathers
+            # fetches both with ONE row take instead of two element gathers
             garr["walk_db"] = jnp.stack(
                 [lay.deg.astype(np.int32), base], axis=1)
         self._garr = garr
@@ -168,15 +133,14 @@ class SyncForce2Vec:
         self._iteration = self._build_iteration_fn()
         train = self._build_train_fn()
         # The jitted program CLOSES OVER the graph arrays instead of taking
-        # them as parameters: measured on v5e this is worth ~2.9 ms/iter
-        # (~25%) at the headline bench size — as captured constants XLA owns
-        # their layout and hoists the index-table preprocessing out of the
-        # loop, which it cannot do for caller-supplied parameters
-        # (benchmarks/exp_r3.py trainwrap).  Big graphs cannot close over:
-        # captured constants ride the (remote) compile request, and past
-        # ~150 MB the compile service rejects it (HTTP 413) — there the
-        # runner passes garr as real arguments (the closure's ~2.9 ms win
-        # is noise at big-graph per-iteration times anyway).
+        # them as parameters: as captured constants XLA owns their layout
+        # and can hoist index-table preprocessing out of the loop, which it
+        # cannot do for caller-supplied parameters.  Constants are embedded
+        # in the compiled program, though, so they cost compile time, host
+        # memory while compiling and persistent-cache space in proportion
+        # to the graph: past 128 MB the runner passes garr as real
+        # arguments instead.  Whether the closure still pays on the GPU is
+        # an open question (PERF.md).
         garr_bytes = sum(int(v.size) * v.dtype.itemsize for v in garr.values())
         if garr_bytes <= 128 * 2**20:
             self._train_jit = make_train_dispatcher(
@@ -190,9 +154,9 @@ class SyncForce2Vec:
             )
 
     def split_stats(self) -> dict:
-        """Hot/cold gather-split accounting (PERF.md §7.6): how many padded
-        slots each gather stream serves per iteration, so artifacts can
-        show the split ACTIVE rather than assert it (VERDICT r4 #4)."""
+        """Hot/cold gather-split accounting: how many padded slots each
+        gather stream serves per iteration, so artifacts can show the split
+        ACTIVE rather than assert it."""
         lay = self.layout
         hot = cold = rect = 0
         for b in lay.buckets:
@@ -254,7 +218,6 @@ class SyncForce2Vec:
             is_hub = b.owners is not None
             end = n if is_hub or bi == len(lay.buckets) - 1 else lay.buckets[bi + 1].start
             bucket_meta.append((bi, b.width, b.start, b.count, end - b.start, is_hub))
-        hub_start = lay.buckets[-1].start if lay.buckets else 0
         wl = cfg.walk_length
 
         # dp sharding: each rank computes a contiguous 1/n_dp slice of every
@@ -263,81 +226,27 @@ class SyncForce2Vec:
         # dp-replicated, so the schedule's semantics are unchanged.
         n_dp, dp_axis = spmd.n_dp, spmd.dp
 
-        # Fused Pallas force sweep (ops/pallas_force.py): only on the real
-        # TPU path and only when the lane dim is whole (tp=1) — the kernel
-        # reduces over the full embedding dim locally.
-        use_pallas = self.use_pallas and spmd.n_tp == 1
-
         gdt = None if cfg.gather_dtype is None else jnp.dtype(cfg.gather_dtype)
 
-        # The bulk neighbor gather materializes a [rows, K, dim] tile in HBM
-        # before the force sweep streams it.  On big graphs one bucket's tile
-        # can exceed the whole HBM (n=1.5M, K=64 → ~8 GB), so every sweep is
-        # chunked: no single materialized tile may exceed this budget.  The
-        # chunks are independent slices of the same bucket; their results
-        # concatenate in row order, so semantics are unchanged.
+        # Each sweep piece gathers a [rows, K, dim] tile.  On big graphs one
+        # bucket's tile can exceed the device memory (n=1.5M, K=64 → ~8 GB
+        # if XLA materialises it), so every sweep is chunked: no single
+        # tile may exceed this budget.  The chunks are independent slices
+        # of the same bucket; their results concatenate in row order, so
+        # semantics are unchanged.
         tile_budget_bytes = self.tile_budget_bytes
         gsize = (gdt or self._dtype).itemsize
 
-        def chunk_spans(local: int, width: int, cap_bytes: Optional[int] = None,
-                        quant: int = 8):
+        def chunk_spans(local: int, width: int, quant: int = 8):
             """Static [(row_offset, row_count)] covering [0, local)."""
-            cap = (cap_bytes or tile_budget_bytes) // max(width * dim * gsize, 1)
+            cap = tile_budget_bytes // max(width * dim * gsize, 1)
             cap = max(quant, (cap // quant) * quant)
             if local <= cap:
                 return [(0, local)]
             return [(o, min(cap, local - o)) for o in range(0, local, cap)]
 
-        def force_sum(kind, xi, xj, dg, invd, step, pallas_ok=True):
-            """Masked force sum over the K axis: Pallas kernel or jnp.
-
-            ``pallas_ok=False`` keeps jnp for inputs that are themselves
-            cheap broadcasts/expands (e.g. group-shared negatives): the
-            fusion-opaque kernel would force them to materialize in HBM,
-            while the jnp chain fuses the expand away.
-            """
-            if use_pallas and pallas_ok:
-                import os as _os
-
-                from force2vec_tpu.ops.pallas_force import (
-                    ell_force,
-                    ell_force_mxu,
-                )
-
-                if (
-                    kind == "edge"
-                    and model.edge_coeff is not None
-                    and _os.environ.get("F2V_MXU_EDGE", "1") != "0"
-                ):
-                    # separable-form MXU sweep: dots/norms/aggregation ride
-                    # the MXU, killing the per-slot lane reduction that
-                    # bounds the elementwise kernel (PERF.md §7).  With a
-                    # hot/cold split layout the 2 MB tile faulted the TPU
-                    # worker at com-Orkut scale (kernel fault on the flat
-                    # split pieces; big graphs are cold-gather-bound so the
-                    # tile is throughput-neutral there — both sizes measure
-                    # 114.5 M up/s) — keep the proven 512 KB tile when
-                    # split pieces exist (PERF.md §8.2).
-                    mxu_tb = 512 * 1024 if hot_start is not None else None
-                    return ell_force_mxu(model, xi, xj, dg, invd, step,
-                                         tile_bytes=mxu_tb)
-                return ell_force(model, kind, xi, xj, dg, invd, step)
-            if xj.dtype != xi.dtype:  # low-precision gather replica
-                xj = xj.astype(xi.dtype)
-            k = xj.shape[1]
-            mask = (
-                jnp.arange(k, dtype=jnp.int32)[None, :] < dg[:, None]
-            )[:, :, None]
-            if kind == "edge":
-                f = model.edge_force(
-                    xi[:, None, :], xj, invd[:, None, None], step, rsum=rsum,
-                    mask=mask,
-                )
-            else:
-                f = model.sample_force(
-                    xi[:, None, :], xj, step, rsum=rsum, mask=mask
-                )
-            return jnp.sum(f, axis=1)
+        def force_sum(kind, xi, xj, dg, invd, step):
+            return masked_force_sum(model, kind, xi, xj, dg, invd, step, rsum)
 
         def shard_rows(total: int):
             """(local_count, offset_fn) for splitting `total` rows over dp."""
@@ -353,24 +262,13 @@ class SyncForce2Vec:
             return jax.lax.all_gather(part_local, dp_axis, axis=0, tiled=True)
 
         # Static piece list for the attraction sweep: every (bucket, chunk
-        # span) pair, packed greedily into TAKE GROUPS of at most
-        # ``take_group_bytes`` of materialized tile.  One bulk ``take``
-        # serves a whole group: measured on v5e, 15 per-bucket takes of the
-        # same rows cost 6.8 ms where one flat take costs 3.9 ms — per-take
-        # scheduling overhead (PERF.md §3).  A handful of groups (instead
-        # of one giant take) keeps the gather engine pipelined against the
-        # VPU force sweep of the previous group.
-        group_cap = min(self.take_group_bytes, tile_budget_bytes)
-
-        # Piece list for the attraction sweep, packed greedily into TAKE
-        # GROUPS of at most ``take_group_bytes`` of materialized tile per
-        # source table.  One bulk ``take`` serves a whole group: measured
-        # on v5e, 15 per-bucket takes of the same rows cost 6.8 ms where
-        # one flat take costs 3.9 ms — per-take scheduling overhead
-        # (PERF.md §3).  With a hot/cold split layout (PERF.md §7.6) the
-        # pieces come in two streams: cold/rect pieces gather from the full
-        # table, hot pieces from the compact hot-suffix copy that the
-        # gather engine serves ~3.6x faster at big-graph scale.
+        # span) pair, each with its own gather, which XLA fuses into that
+        # piece's force reduction.  (Packing many pieces into one bulk
+        # gather forces the gathered rows to materialise and, with many
+        # small pieces, led XLA on the H100 to a slow multi-output reduce
+        # fusion — PERF.md.)  With a hot/cold split layout the pieces come
+        # in two streams: cold/rect pieces gather from the full table, hot
+        # pieces from the compact hot-suffix copy.
         hot_start = lay.hot_start
         # dp + split: every span chunk must divide evenly across ranks.
         # Each chunk's rows are quantized to lcm(8, n_dp); the layout's
@@ -395,15 +293,14 @@ class SyncForce2Vec:
                 b = lay.buckets[bi]
                 if b.hot_spans is None:
                     local = count // n_dp
-                    for c_off, c_rows in chunk_spans(local, width, group_cap):
+                    for c_off, c_rows in chunk_spans(local, width):
                         cold.append(("rect", bi, width, start, count, real,
                                      is_hub, c_off, c_rows))
                     continue
                 for si, sp in enumerate(b.hot_spans):
                     if sp.cold_width > 0:
                         for c_off, c_rows in chunk_spans(
-                                sp.rows_pad, sp.cold_width, group_cap,
-                                quant=row_quant):
+                                sp.rows_pad, sp.cold_width, quant=row_quant):
                             real = min(sp.count - c_off, c_rows)
                             if real <= 0:
                                 continue  # chunk holds only pad rows
@@ -414,8 +311,7 @@ class SyncForce2Vec:
                                 sp.deg_off + c_off, real, "cold"))
                     if sp.width > 0:
                         for c_off, c_rows in chunk_spans(
-                                sp.rows_pad, sp.width, group_cap,
-                                quant=row_quant):
+                                sp.rows_pad, sp.width, quant=row_quant):
                             real = min(sp.count - c_off, c_rows)
                             if real <= 0:
                                 continue
@@ -426,118 +322,68 @@ class SyncForce2Vec:
                                 sp.deg_off + c_off, real, "hot"))
             return cold, hot
 
-        def pack(pieces):
-            groups, cur, cur_bytes = [], [], 0
-            for pc in pieces:
-                width, c_rows = pc[2], (pc[8] if pc[0] == "rect" else pc[5])
-                piece_bytes = c_rows * width * dim * gsize
-                if cur and cur_bytes + piece_bytes > group_cap:
-                    groups.append(cur)
-                    cur, cur_bytes = [], 0
-                cur.append(pc)
-                cur_bytes += piece_bytes
-            if cur:
-                groups.append(cur)
-            return groups
-
         cold_pieces, hot_pieces = build_pieces()
-        take_groups = pack(cold_pieces)
-        hot_take_groups = pack(hot_pieces)
-        # debug/profiling hook (benchmarks/exp_r4.py bigparts)
-        self._take_groups_dbg = (take_groups, hot_take_groups)
 
-        def run_group(g, x, src_tbl, grp, by_bucket, hot_adds, step):
-            """One flat bulk take for a whole group + per-piece force sums."""
-            idxs, metas = [], []
-            for pc in grp:
-                if pc[0] == "rect":
-                    _, bi, width, start, count, real, is_hub, c_off, c_rows = pc
-                    _, off = shard_rows(count)
-                    r0 = off() + jnp.int32(c_off)
-                    nbr = jax.lax.dynamic_slice(
-                        g[f"nbr{bi}"], (r0, 0), (c_rows, width)
-                    )
-                    idxs.append(nbr.reshape(-1))
-                    metas.append(("rect", bi, width, start, is_hub,
-                                  c_off, c_rows, r0))
+        def run_piece(g, x, src_tbl, pc, by_bucket, hot_adds, step):
+            """Gather one piece's neighbour rows and sum their forces."""
+            if pc[0] == "rect":
+                _, bi, width, start, count, real, is_hub, c_off, c_rows = pc
+                _, off = shard_rows(count)
+                r0 = off() + jnp.int32(c_off)
+                nbr = jax.lax.dynamic_slice(
+                    g[f"nbr{bi}"], (r0, 0), (c_rows, width))
+                xj = jnp.take(src_tbl, nbr.reshape(-1), axis=0).reshape(
+                    c_rows, width, dim)
+                dg = jax.lax.dynamic_slice(g[f"deg{bi}"], (r0,), (c_rows,))
+                if is_hub:
+                    owners = jax.lax.dynamic_slice(
+                        g[f"own{bi}"], (r0,), (c_rows,))
+                    xi = jnp.take(x, owners + jnp.int32(start), axis=0)
+                    invd = jnp.take(g["inv_deg"], owners + jnp.int32(start))
                 else:
-                    (_, bi, width, start, row_off, c_rows, f_off,
-                     deg_pos, real, src) = pc
-                    key = f"hotf{bi}" if src == "hot" else f"nbr{bi}"
-                    # dp: each rank takes/sweeps a contiguous 1/n_dp row
-                    # slice of the chunk; the all_gather in the consumer
-                    # reassembles before the [:real] trim
-                    loc = c_rows // n_dp
-                    r0 = spmd.dp_rank() * jnp.int32(loc)
-                    idxs.append(jax.lax.dynamic_slice(
-                        g[key], (jnp.int32(f_off) + r0 * width,),
-                        (loc * width,)))
-                    metas.append(("flat", bi, width, start, row_off,
-                                  loc, deg_pos, real, src, r0))
-            flat_idx = idxs[0] if len(idxs) == 1 else jnp.concatenate(idxs)
-            flat = jnp.take(src_tbl, flat_idx, axis=0)  # [Σ rows·width, dim]
-            fo = 0
-            for m in metas:
-                if m[0] == "rect":
-                    _, bi, width, start, is_hub, c_off, c_rows, r0 = m
-                    xj = jax.lax.slice(
-                        flat, (fo, 0), (fo + c_rows * width, dim)
-                    ).reshape(c_rows, width, dim)
-                    fo += c_rows * width
-                    dg = jax.lax.dynamic_slice(g[f"deg{bi}"], (r0,), (c_rows,))
-                    if is_hub:
-                        owners = jax.lax.dynamic_slice(
-                            g[f"own{bi}"], (r0,), (c_rows,)
-                        )
-                        xi = jnp.take(x, owners + jnp.int32(start), axis=0)
-                        invd = jnp.take(g["inv_deg"], owners + jnp.int32(start))
-                    else:
-                        xi = jax.lax.dynamic_slice(
-                            x, (start + r0, 0), (c_rows, dim)
-                        )
-                        invd = jax.lax.dynamic_slice(
-                            g["inv_deg"], (start + r0,), (c_rows,)
-                        )
-                    by_bucket.setdefault(bi, []).append(
-                        force_sum("edge", xi, xj, dg, invd, step)
-                    )
-                else:
-                    (_, bi, width, start, row_off, loc, deg_pos,
-                     real, src, r0) = m
-                    xj = jax.lax.slice(
-                        flat, (fo, 0), (fo + loc * width, dim)
-                    ).reshape(loc, width, dim)
-                    fo += loc * width
-                    dkey = f"hotdeg{bi}" if src == "hot" else f"deg{bi}"
-                    dg = jax.lax.dynamic_slice(
-                        g[dkey], (jnp.int32(deg_pos) + r0,), (loc,))
                     xi = jax.lax.dynamic_slice(
-                        x, (jnp.int32(start + row_off) + r0, 0), (loc, dim))
+                        x, (start + r0, 0), (c_rows, dim))
                     invd = jax.lax.dynamic_slice(
-                        g["inv_deg"], (jnp.int32(start + row_off) + r0,),
-                        (loc,))
-                    res = gathered(
-                        force_sum("edge", xi, xj, dg, invd, step))[:real]
-                    if src == "hot":
-                        hot_adds.setdefault(bi, []).append((row_off, res))
-                    else:
-                        by_bucket.setdefault(bi, []).append((row_off, res))
+                        g["inv_deg"], (start + r0,), (c_rows,))
+                by_bucket.setdefault(bi, []).append(
+                    force_sum("edge", xi, xj, dg, invd, step))
+                return
+            (_, bi, width, start, row_off, c_rows, f_off,
+             deg_pos, real, src) = pc
+            key = f"hotf{bi}" if src == "hot" else f"nbr{bi}"
+            # dp: each rank takes/sweeps a contiguous 1/n_dp row slice of
+            # the chunk; the all_gather reassembles before the [:real] trim
+            loc = c_rows // n_dp
+            r0 = spmd.dp_rank() * jnp.int32(loc)
+            idx = jax.lax.dynamic_slice(
+                g[key], (jnp.int32(f_off) + r0 * width,), (loc * width,))
+            xj = jnp.take(src_tbl, idx, axis=0).reshape(loc, width, dim)
+            dkey = f"hotdeg{bi}" if src == "hot" else f"deg{bi}"
+            dg = jax.lax.dynamic_slice(
+                g[dkey], (jnp.int32(deg_pos) + r0,), (loc,))
+            xi = jax.lax.dynamic_slice(
+                x, (jnp.int32(start + row_off) + r0, 0), (loc, dim))
+            invd = jax.lax.dynamic_slice(
+                g["inv_deg"], (jnp.int32(start + row_off) + r0,), (loc,))
+            res = gathered(force_sum("edge", xi, xj, dg, invd, step))[:real]
+            if src == "hot":
+                hot_adds.setdefault(bi, []).append((row_off, res))
+            else:
+                by_bucket.setdefault(bi, []).append((row_off, res))
 
         def attraction(g, x, xg, step):
             """Σ_buckets masked ELL force — returns the [n_pad, dim] update."""
             by_bucket, hot_adds = {}, {}
-            for grp in take_groups:
-                run_group(g, x, xg, grp, by_bucket, hot_adds, step)
-            if hot_take_groups:
-                # optimization_barrier forces the suffix copy to MATERIALIZE
-                # as its own compact buffer — without it XLA fuses the slice
-                # into the takes (index offset into the big table), which
-                # never engages the ≤~100 MB fast gather tier (measured:
-                # 414 M rows/s materialized vs 165 M fused; exp_r4 hotloop)
+            for pc in cold_pieces:
+                run_piece(g, x, xg, pc, by_bucket, hot_adds, step)
+            if hot_pieces:
+                # optimization_barrier makes the suffix copy MATERIALIZE as
+                # its own compact buffer; without it XLA folds the slice
+                # into the gathers (an index offset into the big table)
                 xg_hot = jax.lax.optimization_barrier(
                     jax.lax.slice(xg, (hot_start, 0), (n_pad, dim)))
-                for grp in hot_take_groups:
-                    run_group(g, x, xg_hot, grp, by_bucket, hot_adds, step)
+                for pc in hot_pieces:
+                    run_piece(g, x, xg_hot, pc, by_bucket, hot_adds, step)
             parts = []
             for bi, width, start, count, real, is_hub in bucket_meta:
                 b = lay.buckets[bi]
@@ -585,33 +431,35 @@ class SyncForce2Vec:
             return gathered(part)
 
         group = max(cfg.batch_size, 1)
-        from force2vec_tpu.ops.pallas_force import rep_tile_rows
-
-        # dp>1 qualifies too when every shard's row range starts on a group
-        # boundary (then its local groups are a contiguous slice of sg) —
-        # the r3 restriction to n_dp == 1 left the jnp chain re-
-        # materializing ~2 ms/iter of expand temporaries on exactly the
-        # multi-device path (VERDICT r3 weak #6)
-        use_rep_pallas = (
-            use_pallas
-            and rep_tile_rows(group) > 0
-            and (n_pad // n_dp) % group == 0
-        )
 
         def repulsion(x, xg, negs, step):
             local, off = shard_rows(n_pad)
             r0 = off()
+            # With a gather replica, both sides of a sample pair are taken
+            # at its precision: a sample that hits its own row then has
+            # exactly zero distance and, as on the f32 path, zero force
+            # (full-precision xi against a rounded copy of itself gives a
+            # tiny distance and a clamped, maximal tdist force).
+            # reduce_precision, unlike a convert round trip, is not removed
+            # by XLA's excess-precision simplification.
+            if gdt is None:
+                at_replica = lambda v: v  # noqa: E731
+            else:
+                fi = jnp.finfo(gdt)
+                at_replica = lambda v: jax.lax.reduce_precision(  # noqa: E731
+                    v.astype(x.dtype), exponent_bits=fi.nexp,
+                    mantissa_bits=fi.nmant)
             if negs.shape[0] == n_pad:
                 # per-row samples ([n_pad, ns]): bulk gathers, chunked
                 base = r0
                 chunks = []
                 for c_off, c_rows in chunk_spans(local, ns):
                     r0c = base + jnp.int32(c_off)
-                    xi = jax.lax.dynamic_slice(x, (r0c, 0), (c_rows, dim))
+                    xi = at_replica(jax.lax.dynamic_slice(
+                        x, (r0c, 0), (c_rows, dim)))
                     nb = jax.lax.dynamic_slice(negs, (r0c, 0), (c_rows, ns))
-                    s = jnp.take(xg, nb.reshape(-1), axis=0).reshape(
-                        c_rows, ns, dim
-                    )
+                    s = at_replica(jnp.take(xg, nb.reshape(-1), axis=0)
+                                   ).reshape(c_rows, ns, dim)
                     full = jnp.full((c_rows,), ns, dtype=jnp.int32)
                     invd0 = jnp.zeros((c_rows,), dtype=x.dtype)
                     chunks.append(
@@ -622,41 +470,17 @@ class SyncForce2Vec:
             # grouped samples ([ng, ns]): each batch_size-row group shares
             # one ns-sample set — the reference's own option-5 sampling
             # pattern (sample/algorithms.cpp:577-586), and the repulsion
-            # gather collapses from n·ns rows to ng·ns rows.
-            xi = jax.lax.dynamic_slice(x, (r0, 0), (local, dim))
-            sg = jnp.take(xg, negs.reshape(-1), axis=0).reshape(
+            # gather collapses from n·ns rows to ng·ns rows.  XLA fuses the
+            # [local, ns, D] group expand into the force reduction.
+            xi = at_replica(jax.lax.dynamic_slice(x, (r0, 0), (local, dim)))
+            sg = at_replica(jnp.take(xg, negs.reshape(-1), axis=0)).reshape(
                 negs.shape[0], ns, dim
             )
-            if use_rep_pallas:
-                # Pallas kernel: each tile reads its ONE [ns, D] group block
-                # via the BlockSpec index map, so the [local, ns, D] group
-                # expand never touches HBM (the jnp chain materializes ~3
-                # tile-sized f32 temporaries — ~2 ms/iter at the headline
-                # bench size).  Under dp, each shard slices its own
-                # contiguous group range (local % group == 0 guarantees
-                # alignment).
-                from force2vec_tpu.ops.pallas_force import grouped_rep_force
-
-                sg_loc = (
-                    sg if n_dp == 1 else jax.lax.dynamic_slice(
-                        sg,
-                        (r0 // jnp.int32(group), 0, 0),
-                        (local // group, ns, dim),
-                    )
-                )
-                return gathered(
-                    grouped_rep_force(model, group, xi, sg_loc, step)
-                )
-            # jnp fallback (CPU, dp>1, or no tile divides the group): the
-            # fused chain absorbs the group expand, which the fusion-opaque
-            # ell_force kernel would force to materialize.
             gid = (r0 + jnp.arange(local, dtype=jnp.int32)) // jnp.int32(group)
             s = jnp.take(sg, gid, axis=0)
             full = jnp.full((local,), ns, dtype=jnp.int32)
             invd0 = jnp.zeros((local,), dtype=x.dtype)
-            return gathered(
-                force_sum("sample", xi, s, full, invd0, step, pallas_ok=False)
-            )
+            return gathered(force_sum("sample", xi, s, full, invd0, step))
 
         def iteration(garr, x, negs, walks, step):
             step = jnp.asarray(step, dtype=x.dtype)
@@ -762,10 +586,9 @@ def _build_walk_tables(lay: SyncLayout):
     slot`` — the flat pool linearizes the whole CSR row.  Requires the
     plain (unsplit) layout; walk models build with hot_rows=0.
 
-    Why: the previous per-step lookup where-chained a gather over every
-    bucket table (~15 two-index gathers per step); measured on-chip it
-    made the walk engine 90 ms of the 95 ms rwalk iteration (PERF.md
-    §8.3).  One 1-D gather per step replaces all of it.
+    Why: a per-step lookup that where-chains a gather over every bucket
+    table costs ~15 two-index gathers per step; one 1-D gather per step
+    replaces all of it.
     """
     assert lay.hot_start is None, "walk tables need the unsplit layout"
     base = np.zeros(lay.n_pad, dtype=np.int64)
@@ -796,9 +619,6 @@ def _ell_walks(garr, lay: SyncLayout, key, walk_length: int):
     start = jnp.arange(n_pad, dtype=jnp.int32)
     pool = garr["walk_pool"]
     db = garr["walk_db"]  # [n_pad, 2] = (deg, base)
-    # (an 8-lane pool view with a row take + take_along_axis lane select
-    # was chip-tested and is 1.5x SLOWER than the flat element gather —
-    # the lane select lowers to another gather; 20.3 vs 13.4 ms/iter)
 
     def step_fn(carry, step_key):
         w = carry

@@ -1,8 +1,8 @@
-"""The Force2Vec training loop, TPU-first.
+"""The Force2Vec training loop (the reference's batch-sequential schedule).
 
 One jitted function runs the *entire* multi-iteration training:
 
-* iterations and batches are ``lax.fori_loop``s over a donated embedding
+* iterations and batches are ``lax.fori_loop``s over the embedding
   carry — the whole run is a single device program, no per-step host
   dispatch (the reference instead forks/joins OpenMP twice per batch,
   sample/algorithms.cpp:588-639);
@@ -11,16 +11,15 @@ One jitted function runs the *entire* multi-iteration training:
   ``dynamic_slice`` / ``dynamic_update_slice`` — no scatter;
 * the batch's CSR edges (one contiguous ``colids`` span) are walked in
   fixed-size chunks: gather neighbor rows, evaluate the force model
-  elementwise, segment-reduce into batch rows via an MXU one-hot matmul.
+  elementwise, segment-reduce into batch rows (ops/segment.py).
   The edge-centric chunk schedule is load-balanced by construction — the
-  TPU answer to the reference's per-thread nnz partitioning
+  device-side answer to the reference's per-thread nnz partitioning
   (sample/algorithms.cpp:2483-2511);
 * batch-update semantics match the reference exactly: every read within a
   batch sees the pre-batch embedding, updates apply at batch end, and batch
   b+1 observes them (sample/algorithms.cpp:569-639);
-* graph arrays (rowptr/colids/edge_src/inv_deg) are *arguments* of the
-  jitted program, never closed-over constants — closure capture would bake
-  megabytes of graph into the compiled executable and blow up compile time.
+* graph arrays (rowptr/colids/edge_src/inv_deg) are closed over as
+  constants of the jitted program (see ``Force2Vec.__init__``).
 """
 
 from __future__ import annotations
@@ -46,12 +45,13 @@ def make_train_dispatcher(build_jit_for_count):
     """Runner-protocol train entry ``(garr, x, key, num_iters, iter_offset)``
     that specializes the compiled program per ITERATION COUNT.
 
-    Measured on v5e: a dynamic ``fori_loop`` trip count costs ~1.6x over a
-    static one, and donating the embedding carry costs another ~1.2x (the
-    in-place alias serializes iterations; a ping-pong carry lets XLA's
-    scheduler overlap iteration i+1's gathers with iteration i's tail).  So
-    every runner compiles one program per distinct span length (there are
-    one or two per training run) with NO donation, cached here.
+    A static ``fori_loop`` trip count gives XLA a fixed loop to schedule,
+    and an undonated carry (ping-pong buffers) leaves it free to overlap
+    iteration i+1's gathers with iteration i's tail; both choices came from
+    measurements on earlier hardware and are open questions on the GPU
+    (PERF.md).  So every runner compiles one program per distinct span
+    length (there are one or two per training run) with NO donation,
+    cached here.
 
     ``build_jit_for_count(k)`` must return a jitted ``fn(garr, x, key,
     iter_offset)`` running exactly ``k`` iterations.
@@ -86,7 +86,7 @@ class TrainConfig:
     walk_length: int = 5  # WALKLENGTH (sample/algorithms.cpp:1073)
     edge_chunk: Optional[int] = None  # device edge-tile size (None → auto)
     rep_chunk: int = 512  # row-tile for exact O(n²) repulsion
-    segment_mode: str = "matmul"  # 'matmul' (MXU) | 'scatter'
+    segment_mode: str = "scatter"  # 'scatter' | 'matmul' (ops/segment.py)
     dtype: str = "float32"
     # Mixed-precision gathers (sync schedule): keep X in ``dtype`` for the
     # exact SGD apply, but feed the random neighbor/sample gathers — the
@@ -96,8 +96,7 @@ class TrainConfig:
     gather_dtype: Optional[str] = None
     # Reference fast_SM parity mode: sigmoid family evaluates σ via the
     # 2048-entry lookup table (sample/algorithms.cpp:755-776) instead of
-    # the exact VPU sigmoid.  jnp paths only (no Mosaic lowering for the
-    # 1-D table gather) — trainers disable the Pallas kernel when set.
+    # the exact sigmoid.
     sm_table: bool = False
 
     def resolve_lr(self, model: ForceModel) -> float:
@@ -105,7 +104,7 @@ class TrainConfig:
 
 
 class Force2Vec:
-    """Train force-directed graph embeddings on TPU.
+    """Train force-directed graph embeddings (batch-sequential schedule).
 
     Example::
 
@@ -135,9 +134,9 @@ class Force2Vec:
         self._iteration = self._build_iteration_fn()
         train = self._build_train_fn()
         # Close over the graph arrays (captured constants) rather than pass
-        # them as jit parameters — worth ~25% per iteration on v5e; see
-        # train/sync.py and benchmarks/exp_r3.py (trainwrap).  The ``g``
-        # runner-protocol argument is accepted and ignored.
+        # them as jit parameters: XLA then owns their layout and can hoist
+        # index preprocessing out of the loop (see train/sync.py).  The
+        # ``g`` runner-protocol argument is accepted and ignored.
         self._train_jit = make_train_dispatcher(
             lambda k: (
                 lambda jf: (lambda g, x, key, off: jf(x, key, off))

@@ -38,7 +38,7 @@ def main():
     from force2vec_tpu.graphs.io import read_mtx
     from force2vec_tpu.train.trainer import TrainConfig
 
-    graph = read_mtx("/root/reference/datasets/input/karate.mtx")
+    graph = read_mtx(os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "karate.mtx"))
     cfg = TrainConfig(dim=8, model="tdist", ns=3)
     if mode == "vp":
         from force2vec_tpu.dist.vertex_sharded import (

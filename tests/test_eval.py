@@ -18,11 +18,12 @@ from force2vec_tpu.graphs import read_mtx
 from force2vec_tpu.train.trainer import Force2Vec, TrainConfig
 
 REF_INPUT = "/root/reference/datasets/input"
+KARATE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "karate.mtx")
 
 
 @pytest.fixture(scope="module")
 def karate():
-    return read_mtx(os.path.join(REF_INPUT, "karate.mtx"))
+    return read_mtx(KARATE)
 
 
 def test_linkpred_dataset_shape(karate):

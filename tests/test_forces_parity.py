@@ -1,4 +1,4 @@
-"""Kernel-parity tests: the jitted TPU-style training step vs the plain-numpy
+"""Kernel-parity tests: the jitted training step vs the plain-numpy
 oracle that mirrors the C++ loops, with identical injected negative samples
 and walks (SURVEY.md §4: parity is defined over injected samples, never over
 the RNG stream)."""

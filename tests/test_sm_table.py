@@ -2,7 +2,7 @@
 
 The reference's sigmoid variants evaluate σ via a 2048-entry lookup table
 (init_SM_TABLE/fast_SM, sample/algorithms.cpp:755-776).  Exact sigmoid is
-the (cheaper, better) TPU default; ``TrainConfig(sm_table=True)`` switches
+the (cheaper, better) default; ``TrainConfig(sm_table=True)`` switches
 the sigmoid family to the table for bit-level parity experiments.  These
 tests pin (1) the table semantics against a literal numpy transcription of
 the C++ and (2) oracle parity of a full training iteration in table mode.
@@ -101,7 +101,6 @@ def test_table_mode_sync_close_to_exact():
     cfg_e = TrainConfig(dim=16, batch_size=16, model="sigmoid", ns=4)
     fvt = SyncForce2Vec(graph, cfg_t, min_width=4, hub_width=16, row_align=4)
     fve = SyncForce2Vec(graph, cfg_e, min_width=4, hub_width=16, row_align=4)
-    assert not fvt.use_pallas  # table gather has no Mosaic lowering
     x0 = fve.init_embedding(seed=3)
     ng = -(-fve.layout.n_pad // 16)
     negs = np.random.default_rng(4).integers(
